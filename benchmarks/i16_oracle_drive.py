@@ -1,10 +1,9 @@
-"""On-chip oracle drive for an int16-range db (P=6 plane stack).
+"""On-device oracle drive for an int16-range db (P=6 plane stack).
 
-Verifies the round-5 asymmetric pallas sweep ((512, 256) blocks for P=6,
-matrix/compute.py) end to end on the REAL backend: synthetic int16-range
+Verifies the 6-plane schedule end to end on the GPU: synthetic int16-range
 vectors -> compute_pairwise_shard -> decoded triples == exact float64
-oracle (same gate as the verify skill's canonical TPU drive, with
-max_abs pushed past the L=2 limb range so the engine runs 6 planes).
+oracle (the gate of chip_smoke.py's pairwise phase, with max_abs pushed
+past the L=2 limb range so the engine runs 6 planes).
 
 Run: python benchmarks/i16_oracle_drive.py [n] [d] [tile]
 """

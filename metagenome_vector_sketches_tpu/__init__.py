@@ -1,13 +1,13 @@
-"""metagenome_vector_sketches_tpu — a TPU-native metagenome sketch-and-search engine.
+"""metagenome_vector_sketches_tpu — a metagenome sketch-and-search engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design, run on NVIDIA GPUs, of the capabilities of
 RolandFaure/metagenome_vector_sketches (reference layout documented in SURVEY.md):
 
 - FracMinHash sourmash signatures -> seeded +-1 random-projection sketch vectors
   (splitmix64 sign generation, bit-exact with the reference math,
   reference: src/random_projection.cpp:9-26).
 - All-vs-all thresholded pairwise Jaccard-estimate matrix as tiled integer
-  matmuls on the MXU (int8 limb decomposition), with on-device threshold
+  matmuls (int8 limb decomposition), with on-device threshold
   filtering + candidate compaction and exact float64 host finalization
   (reference: src/pairwise_comp_optimized.cpp).
 - Succinct sparse-matrix storage (compact-vector / Rice / Elias-Fano codecs,

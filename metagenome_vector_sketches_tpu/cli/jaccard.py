@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
                           help="Retrieve all datasets with higher Jaccard index")
     p_search.add_argument("-t", "--threads", type=int, default=1)
     p_search.add_argument("--recall_target", type=float, default=1.0,
-                          help="< 1.0 uses the ~2x-faster approximate TPU "
+                          help="< 1.0 uses the approximate "
                                "top-k for candidate selection (final Jaccard "
                                "rescoring stays exact); 1.0 = FAISS-exact")
     p_search.add_argument("--engine", choices=("f32", "int8", "int8_approx"),
@@ -50,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
                           help="Serve mesh-sharded over this many local "
                                "devices (0 = all, 1 = single device; "
                                "extension — results are identical, candidate "
-                               "pools merge over ICI)")
+                               "pools merge across devices)")
 
     p_test = sub.add_parser(
         "test", help="Ground-truth validation: sample accessions, search the "

@@ -4,7 +4,7 @@ dispatch on dtype.txt at :852-879 is automatic here too).
 
 Flags match the reference (all of --db/--max_memory_gb/--num_threads/
 --output_folder/--num_shards/--shard_idx are accepted; memory/threads are
-advisory on TPU — tiling is chosen from --max_memory_gb when given).
+advisory on the accelerator — tiling is chosen from --max_memory_gb).
 """
 
 from __future__ import annotations
@@ -34,18 +34,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run the engine mesh-parallel over this many local "
                         "devices (0 = all local devices, 1 = single device; "
                         "extension — one shard then uses every chip)")
-    p.add_argument("--finalize", choices=["auto", "host", "device"],
-                   default="auto",
-                   help="Exact candidate-dot recomputation site (extension): "
-                        "host = float64 BLAS from the resident vectors; "
-                        "device = int32 limb partials on the chip, O(K) host "
-                        "combine; auto = device on TPU backends")
+    p.add_argument("--finalize", choices=["host", "device"],
+                   default="device",
+                   help="Exact candidate-dot recomputation site of the "
+                        "two-phase engine (extension): host = float64 BLAS "
+                        "from the resident vectors; device = int32 limb "
+                        "partials on the device, O(K) host combine")
     p.add_argument("--gate_sparse_tiles", action="store_true",
                    help="Skip selection work on candidate-free tiles via an "
                         "HLO conditional (extension). Only for genuinely "
                         "SPARSE tile grids (most tiles empty); at production "
-                        "density the conditional costs ~17% (measured at "
-                        "N=262k, tile=2048 on v5e)")
+                        "density every tile is hot and the conditional only "
+                        "adds work")
     p.add_argument("--strategy", type=int, default=0, choices=[0, 1],
                    help="0 = projected-sketch estimates (default); 1 = exact "
                         "MinHash set Jaccard from --hashes (the reference's "
@@ -69,7 +69,7 @@ def tile_from_memory(max_memory_gb: float, dimension: int) -> int:
     tile = int((-6 * d + math.sqrt(36 * d * d
                                    + 4 * 48 * max(1.0, budget))) / 96.0)
     # cap at 2048: larger extraction tiles recompute needlessly coarse hot
-    # regions and the counts sweep runs at a fixed 512 pallas block anyway
+    # regions
     tile = max(256, min(2048, 1 << (tile.bit_length() - 1)))
     return tile
 
@@ -98,9 +98,7 @@ def main(argv=None) -> int:
     compute_pairwise_shard(args.db, args.output_folder,
                            num_shards=args.num_shards, shard_idx=args.shard_idx,
                            tile_rows=tile, tile_cols=tile, resume=args.resume,
-                           mesh=mesh,
-                           finalize=None if args.finalize == "auto"
-                           else args.finalize,
+                           mesh=mesh, finalize=args.finalize,
                            gate=args.gate_sparse_tiles)
     return 0
 

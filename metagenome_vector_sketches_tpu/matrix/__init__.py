@@ -1,2 +1,2 @@
 """Sparse pairwise-matrix artifacts: shard writer, shard reader, and the
-pairwise compute engine driving the TPU kernels."""
+pairwise compute engine driving the device programs."""

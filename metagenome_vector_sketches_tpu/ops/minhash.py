@@ -4,11 +4,11 @@ estimator — README.md:73 documents it, the accuracy study models it
 (compute_error_of_random_projections.py:160-180), and BASELINE.json lists it
 as a benchmark config; no projection error involved).
 
-TPU formulation: the all-vs-all intersection-count matrix is
+Device formulation: the all-vs-all intersection-count matrix is
 M @ M^T where M is the (N x U) binary incidence matrix of accessions over the
 unique-hash universe. U is processed in chunks of dense int8 columns so every
-step is an MXU int8 matmul with int32 accumulation — exact, and at matmul
-speed-of-light like the sketch path.
+step is an int8 matmul with int32 accumulation — exact, and at int8 matmul
+rate like the sketch path.
 """
 
 from __future__ import annotations

@@ -11,13 +11,13 @@ Two execution paths, tested equal:
 
 - :func:`project_host` — numpy uint64 + unpackbits. Used for bit-match tests
   and as a CPU fallback.
-- :func:`project_device_batch` — the TPU path. Hash sets are padded into a
+- :func:`project_device_batch` — the device path. Hash sets are padded into a
   ``(B, H)`` bucket; splitmix64 runs on (hi, lo) uint32 pairs; the +-1 sum
   over hashes for lane ``n`` equals ``count_valid - 2 * sum(bit_n)``. The
   per-lane bit sums use SWAR vertical counters (:func:`_bit_lane_sums`):
   chunks of 15 words accumulate 8 lanes per 4-bit field of one uint32
-  accumulator — ~5x fewer VPU ops and ~8x less intermediate traffic than
-  extracting each lane to its own int32.
+  accumulator — ~5x fewer vector ops and ~8x less intermediate traffic
+  than extracting each lane to its own int32.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def _bit_lane_sums(w, nc: int):
 
 @functools.partial(jax.jit, static_argnames=("d",))
 def project_device_batch(hash_hi, hash_lo, valid_count, d: int):
-    """Project a padded batch of hash sets on the TPU.
+    """Project a padded batch of hash sets on the device.
 
     Args:
       hash_hi, hash_lo: (B, H) uint32 — hash values split into 32-bit halves.
@@ -155,9 +155,8 @@ def project_device_batch(hash_hi, hash_lo, valid_count, d: int):
         return valid_count[:, None] - 2 * bitsum
 
     # scan over GROUPS of blocks with a static unroll: one block per step
-    # starves the VPU of independent work (measured ~20% slower on v5e),
-    # while fully vectorizing all blocks multiplies peak memory by
-    # num_blocks; 4 per step is the measured sweet spot
+    # leaves little independent work per step, while fully vectorizing all
+    # blocks multiplies peak memory by num_blocks; 4 per step sits between
     unroll = 4
     while num_blocks % unroll:
         unroll //= 2
@@ -183,7 +182,8 @@ def _bucket_size(n: int, min_bucket: int = 256) -> int:
 
 def project_device_many(hash_sets, d: int, batch_hint_elems: int = 1 << 24,
                         min_bucket: int = 256) -> np.ndarray:
-    """Project many ragged hash sets on the TPU with power-of-two bucketing.
+    """Project many ragged hash sets on the device with power-of-two
+    bucketing.
 
     Sets are grouped by padded bucket size (so jit compiles once per bucket
     size) and batched so each launch stays near ``batch_hint_elems`` padded
@@ -211,8 +211,7 @@ def project_device_many(hash_sets, d: int, batch_hint_elems: int = 1 << 24,
                                         jnp.asarray(counts), d)
             if counts.max(initial=0) <= 32767:
                 # |v_j| <= #hashes, so the batch fits int16 losslessly:
-                # halve the device->host volume (the dominant stage cost
-                # on thin links — 2.1 GB at N=262k; free on PCIe hosts)
+                # halve the device->host volume (2.1 GB at N=262k)
                 vecs = _downcast_i16(vecs)
             out[np.asarray(group)] = np.asarray(vecs)
     return out

@@ -7,9 +7,9 @@ splitmix64 finalizer applied to ``hash + block_offset``
 Two implementations, bit-identical by construction and by test:
 
 - :func:`splitmix64_np` — host path, vectorized numpy ``uint64``.
-- :func:`splitmix64_u32` — device path for TPUs, which have no native 64-bit
-  integer lanes: a ``(hi, lo)`` pair of ``uint32`` arrays emulates u64 with
-  explicit carry/mul-limb arithmetic. Pure jnp, jittable, VPU-friendly.
+- :func:`splitmix64_u32` — device path without 64-bit integers (JAX runs
+  with x64 off): a ``(hi, lo)`` pair of ``uint32`` arrays emulates u64 with
+  explicit carry/mul-limb arithmetic. Pure jnp, jittable.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def splitmix64_np(x: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# u64-as-two-u32 emulation for the TPU device path
+# u64-as-two-u32 emulation for the device path
 # ---------------------------------------------------------------------------
 
 def split_u64(x: np.ndarray):
@@ -107,7 +107,7 @@ def _const64(value: int):
 def splitmix64_u32(xhi, xlo):
     """splitmix64 finalizer (incl. the += GOLDEN) on (hi, lo) uint32 pairs.
 
-    jnp arrays in, jnp arrays out; runs on the TPU VPU under jit. Bit-exact
+    jnp arrays in, jnp arrays out; runs on the device under jit. Bit-exact
     with :func:`splitmix64_np` (tested in tests/test_splitmix.py).
     """
     ghi, glo = _const64(int(GOLDEN))

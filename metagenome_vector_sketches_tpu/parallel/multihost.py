@@ -4,15 +4,15 @@ The reference scales across machines by launching one process per
 --shard_idx from an HPC job array, with the filesystem as the only
 "collective" (SURVEY.md §2.3). This framework keeps that contract — shard
 folders remain independently restartable units — and adds genuine multi-host
-TPU execution on top:
+execution on top:
 
 - :func:`initialize` wraps jax.distributed.initialize (env-driven, safe to
   call on single host).
 - :func:`host_shards` maps the reference's shard space onto hosts
   (process k computes shards k, k+P, k+2P, ... — drop-in for a job array).
 - :func:`global_mesh` builds a mesh over all global devices; the sharded
-  pairwise sweep / distributed top-k in parallel.pairwise then ride ICI
-  within a slice and DCN across hosts via standard GSPMD collectives.
+  pairwise sweep / distributed top-k in parallel.pairwise then use
+  standard GSPMD collectives within and across hosts.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Each device owns a row block of the (limb-decomposed) vector matrix; the
 column side streams through the ring via jax.lax.all_gather over the mesh
-axis (ICI on real hardware). The thresholded survivor mask / quantized
+axis. The thresholded survivor mask / quantized
 Jaccard tiles come back row-sharded, so downstream host finalization and
 shard writing stay per-host exactly like the single-chip engine.
 """
@@ -31,7 +31,7 @@ def sharded_pairwise_counts(mesh, v_limbs, thr, d: int):
       v_limbs: (L, N, d) int8 balanced limbs (ops.pairwise.decompose_limbs)
         — row-sharded on axis 1 (N divisible by mesh size). Limbs, not
         planes: the Karatsuba sum planes are rebuilt locally AFTER the
-        gather, so the ICI all_gather moves L/P = 2/3 of the bytes.
+        gather, so the all_gather moves L/P = 2/3 of the bytes.
       thr: (N,) float32 squared norms — row-sharded.
       d: dimension.
 
@@ -42,7 +42,7 @@ def sharded_pairwise_counts(mesh, v_limbs, thr, d: int):
                                 SLACK_REL, SLACK_ABS)
 
     def step(v_local, thr_local):
-        # gather the full column side over ICI (limbs only), extend locally
+        # gather the full column side (limbs only), extend locally
         v_all = jax.lax.all_gather(v_local, DATA_AXIS, axis=1, tiled=True)
         thr_all = jax.lax.all_gather(thr_local, DATA_AXIS, axis=0, tiled=True)
         approx = approx_dot_f32(karatsuba_planes(v_local),
@@ -87,7 +87,7 @@ def _topk_fn(mesh, k: int, n_valid, recall_target: float = 1.0,
                                    -jnp.inf)
         kk = min(k, v_local.shape[0])
         if recall_target < 1.0:
-            # approx local selection (TPU PartialReduce); the cross-device
+            # approx local selection; the cross-device
             # merge below stays an exact re-top-k over the local pools
             d_loc, i_loc = jax.lax.approx_max_k(
                 scores, kk, recall_target=recall_target,

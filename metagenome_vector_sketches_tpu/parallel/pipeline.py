@@ -4,7 +4,7 @@ as ONE jitted program over a device mesh.
 
 Shardings: the accession batch is data-parallel (dp) across the mesh;
 inside the pairwise/top-k stages each device owns its row block and the
-column side is all-gathered over ICI; top-k candidates merge with a
+column side is all-gathered; top-k candidates merge with a
 gather + re-top-k. Used by __graft_entry__.dryrun_multichip and the
 multi-chip benchmarks.
 """
@@ -51,8 +51,8 @@ def make_pipeline_step(mesh, d: int, L: int, k: int):
 
     step(hash_hi, hash_lo, counts) with the accession batch row-sharded:
       1. project hash sets -> int32 sketch vectors             (dp)
-      2. limb-decompose + all-gather columns, threshold sweep  (dp x ICI)
-      3. L2-normalize, distributed top-k with gather merge     (dp x ICI)
+      2. limb-decompose + all-gather columns, threshold sweep  (dp)
+      3. L2-normalize, distributed top-k with gather merge     (dp)
     Returns (survivor_counts (B,), topk_idx (B, k), topk_scores (B, k)).
     """
 
@@ -61,7 +61,7 @@ def make_pipeline_step(mesh, d: int, L: int, k: int):
         # exact squared norms as the |set| estimate
         norms_sq = jnp.sum((vecs.astype(jnp.float32) / np.float32(np.sqrt(d))) ** 2,
                            axis=1)
-        # balanced base-128 limbs; gather limbs over ICI (2/3 the bytes of
+        # balanced base-128 limbs; gather limbs (2/3 the bytes of
         # planes), extend to Karatsuba planes locally, weighted sweep
         from ..ops.pairwise import (approx_dot_f32, decompose_limbs,
                                     karatsuba_planes)

@@ -1,8 +1,13 @@
-"""Persistent XLA compilation cache (off with MVS_TPU_NO_COMPILE_CACHE=1).
+"""Persistent XLA compilation cache.
 
-The CLIs run as independent array-job processes — without this every shard
-job re-pays the (remote, tens-of-seconds) TPU compiles for the same program
-shapes. Imported by the jax-using modules (ops.pairwise, ops.projection,
+The CLIs run as independent array-job processes; without a persistent cache
+every shard job re-pays the compiles of the same program shapes. Where
+``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this module
+sets nothing; otherwise the cache lives at a fixed path inside the checkout
+(``<repo>/.jax_cache``, gitignored), so a later process finds it again.
+An empty directory is a cold cache.
+
+Imported by the jax-using modules (ops.pairwise, ops.projection,
 ann.flat_index) so pure-host entry points (codecs, legacy readers, query
 outputs) never pay the jax import or the mkdir.
 """
@@ -11,25 +16,18 @@ from __future__ import annotations
 
 import os
 
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
 _done = False
 
 
 def ensure() -> None:
     global _done
-    if _done:
+    if _done or os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
     _done = True
-    if os.environ.get("MVS_TPU_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
-        if jax.config.jax_compilation_cache_dir is None:
-            cache = os.environ.get(
-                "JAX_COMPILATION_CACHE_DIR",
-                os.path.join(os.path.expanduser("~"), ".cache",
-                             "mvs_tpu_xla_cache"))
-            os.makedirs(cache, exist_ok=True)
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    import jax
+    os.makedirs(DEFAULT_DIR, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)

@@ -1,9 +1,10 @@
-"""Dense-survivorship stress (VERDICT r1 item 4): clusters of
+"""Dense-survivorship stress: clusters of
 near-identical accessions push >1/32 of tile pairs through the bitmap path,
 and fabricated understated phase-1 counts force BOTH extraction guard
 rails — the per-tile bucket-cap retry and the chunk out_cap re-read — that
-round 1 left untested (they fire only if the Pallas and XLA float32
-threshold decisions disagree on borderline pairs)."""
+round 1 left untested (they fire only if the counts sweep and the
+extraction program's float32 threshold decisions disagree on borderline
+pairs)."""
 
 import numpy as np
 import jax.numpy as jnp

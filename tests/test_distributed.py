@@ -1,4 +1,4 @@
-"""TRUE multi-process distributed test (VERDICT r1 item 2).
+"""TRUE multi-process distributed test.
 
 Spawns 2 OS processes, each with 2 virtual CPU devices, joined through
 jax.distributed.initialize with a local coordinator — so host_shards,

@@ -250,3 +250,30 @@ def test_fused_streaming_dense_fallback_oracle(tmp_path, monkeypatch):
     _, norms = db.names_and_norms()
     ns = norms * norms
     assert_matrix_matches_oracle(V, ns, d, str(tmp_path / "m"), n)
+
+
+def test_finalize_default_is_device_on_any_backend(tmp_path, monkeypatch):
+    """The two-phase engine recomputes exact dots on the device by default,
+    whatever the backend (here the CPU), from the API and from the CLI."""
+    from metagenome_vector_sketches_tpu.cli.pairwise_comp import build_parser
+    from metagenome_vector_sketches_tpu.ops import pairwise as pw
+    args = build_parser().parse_args(
+        ["--db", "x", "--max_memory_gb", "1", "--num_threads", "1",
+         "--output_folder", "y", "--num_shards", "1", "--shard_idx", "0"])
+    assert args.finalize == "device"
+    calls = []
+    real = pw.exact_dots_device
+    monkeypatch.setattr(pw, "exact_dots_device",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(pw, "exact_dots_host", None)   # must not be used
+    rng = np.random.default_rng(4)
+    V = rng.integers(-300, 301, size=(64, 32)).astype(np.int32)
+    V[1] = V[0]
+    db = DbFolder.write(str(tmp_path / "db"), [f"S{i}" for i in range(64)],
+                        V, 32)
+    mc.compute_pairwise_shard(db.path, str(tmp_path / "m"), tile_rows=16,
+                              verbose=False, engine="two_phase")
+    mc.clear_device_cache()
+    assert calls
+    _, norms = db.names_and_norms()
+    assert_matrix_matches_oracle(V, norms * norms, 32, tmp_path / "m", 64)

@@ -194,9 +194,9 @@ def test_int_index_fuzz(seed):
 
 def test_partial_selector_matches_topk():
     """selector='partial' (approx_max_k at recall_target=1.0 — exact
-    per-partition PartialReduce) must return identical results to the
-    lax.top_k selector. bench.py re-checks this equality on the TPU
-    backend before trusting the faster lowering."""
+    per-partition selection) must return identical results to the
+    lax.top_k selector. bench.py re-checks this equality on the GPU
+    before trusting the other lowering."""
     rng = np.random.default_rng(23)
     V = rng.integers(-500, 501, size=(130, 64)).astype(np.int32)
     Q = rng.integers(-500, 501, size=(4, 64)).astype(np.int32)
@@ -363,3 +363,11 @@ def test_int_index_host_build_chunked_norms():
     expect = np.einsum("ij,ij->i", V.astype(np.int64), V.astype(np.int64))
     np.testing.assert_array_equal(idx.ns, expect)
     assert idx.ns.dtype == np.int64
+
+
+def test_combine_partials_f32_within_float32_bound():
+    """The plane combine on partials above 2^11 agrees with the numpy
+    float32 weighted sum within float32 rounding (test_chip repeats this on
+    the card, where a TF32 contraction would fail it)."""
+    from helpers import combine_f32_bound_holds
+    assert combine_f32_bound_holds(seed=1)

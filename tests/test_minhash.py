@@ -1,5 +1,5 @@
 """MinHash strategy (exact set Jaccard, the reference's historical
---strategy 1): TPU incidence matmuls vs python set brute force."""
+--strategy 1): device incidence matmuls vs python set brute force."""
 
 import numpy as np
 

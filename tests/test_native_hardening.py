@@ -165,11 +165,3 @@ def test_int_index_mode_validated():
         IntExactIndex.from_device_chunks(
             [(0, jnp.ones((4, 8), jnp.int32))], 8, mode="aprox")
 
-
-def test_pallas_grid_divisibility():
-    from metagenome_vector_sketches_tpu.ops import pallas_pairwise as pp
-    import jax.numpy as jnp
-    planes = jnp.zeros((1, 48, 8), jnp.int8)
-    thr = jnp.zeros(48, jnp.float32)
-    with pytest.raises(AssertionError, match="multiple"):
-        pp.pallas_sweep_counts(planes, thr, block=32, interpret=True)

@@ -157,3 +157,43 @@ def test_max_tiles_per_batch_respects_int32():
         k = _max_tiles_per_batch(tile)
         assert k >= 1
         assert k * tile * tile <= 2**31 - 1
+
+
+@pytest.mark.parametrize("case", ["full_grid", "row_range", "int16_P6"])
+def test_sweep_counts_within_oracle_bounds(case):
+    """The XLA counts sweep (the two-phase engine's phase 1) against exact
+    float64 counts: each tile's count lies between the pairs that pass the
+    sweep threshold by more than the certified float32 error and those that
+    come within it (required_slack_abs bounds the combine's error)."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng({"full_grid": 0, "row_range": 1,
+                                 "int16_P6": 2}[case])
+    n, d, tile = 512, 128, 128
+    max_abs = 30000 if case == "int16_P6" else 1500
+    protos = rng.integers(-max_abs // 2, max_abs // 2 + 1, size=(64, d))
+    V = (protos[rng.integers(0, 64, n)]
+         + rng.integers(-max_abs // 2, max_abs // 2 + 1, size=(n, d)))
+    V = np.clip(V, -max_abs, max_abs).astype(np.int32)
+    L = pw.pick_limbs(max_abs)
+    assert pw.num_planes(L) == (6 if case == "int16_P6" else 3)
+    thr = (np.einsum("ij,ij->i", V.astype(np.float64), V.astype(np.float64))
+           / d).astype(np.float32)
+    nt = n // tile
+    rows = range(1, 3) if case == "row_range" else range(nt)
+    coords = np.array([(r, c) for r in rows for c in range(nt)], np.int32)
+    got = np.asarray(pw.sweep_counts(pw.decompose_planes(jnp.asarray(V), L),
+                                     jnp.asarray(thr), jnp.asarray(coords),
+                                     tile))
+    slack = pw.required_slack_abs(L, max_abs, d)
+    Vi = V.astype(np.int64)
+    t64 = thr.astype(np.float64)
+    for (r, c), g in zip(coords, got):
+        a = slice(r * tile, (r + 1) * tile)
+        b = slice(c * tile, (c + 1) * tile)
+        lhs = (Vi[a] @ Vi[b].T) / d
+        rhs = (0.05 * (t64[a, None] + t64[None, b]) * float(pw.SLACK_REL)
+               - float(pw.SLACK_ABS))
+        margin = slack + 1e-6 * np.abs(rhs) + 1e-3
+        assert int((lhs > rhs + margin).sum()) <= g \
+            <= int((lhs > rhs - margin).sum()), (r, c)
+    assert got.sum() > 0 and (got < tile * tile).any()

@@ -12,7 +12,7 @@ landed without tests, plus the ADVICE r4 finalizer bookkeeping fixes.
 - two-stage exact selector (ann/int_index.py _int_scan_pool): adversarial
   tie grids (duplicated scores straddling 128-block boundaries, kc edge
   cases) vs an independent numpy oracle with lax.top_k tie order.
-- finalizer bookkeeping (ADVICE r4): LAST_STAGES['candidates'] means
+- finalizer bookkeeping: LAST_STAGES['candidates'] means
   device-extracted volume (mirror twins only under 'emitted'), and the
   dense/retry mirror path computes each unordered pair's exact dot ONCE.
 """
@@ -341,7 +341,7 @@ def test_two_stage_selector_matches_plain_topk_large_pool():
 def test_candidates_counts_extraction_not_mirrors(tmp_path):
     """Single-shard all-vs-all (triangle grid + host mirroring):
     LAST_STAGES['candidates'] must reflect device-extracted volume only;
-    mirror twins land under 'emitted' (ADVICE r4 #2)."""
+    mirror twins land under 'emitted'."""
     rng = np.random.default_rng(80)
     n, d = 96, 64
     V = rng.integers(-200, 201, size=(n, d)).astype(np.int32)
@@ -368,7 +368,7 @@ def test_dense_mirror_path_oracle_and_single_dot_compute(tmp_path,
     retry through the MIRRORED finalize_globals: exact dots are computed
     once per unordered pair and both directions emitted — results must
     stay oracle-equal and the dot computation must see each unordered pair
-    exactly once (ADVICE r4 #1)."""
+    exactly once."""
     monkeypatch.setattr(mc, "FUSED_CAP_FLOOR", 4)
     rng = np.random.default_rng(81)
     n, d = 64, 32

@@ -29,7 +29,7 @@ def _random_db(rng):
     return V, d, use_int16
 
 
-def _run_one(tmp_path, seed, mesh=None, finalize=None):
+def _run_one(tmp_path, seed, mesh=None, finalize="device"):
     rng = np.random.default_rng(seed)
     V, d, use_int16 = _random_db(rng)
     n = V.shape[0]
@@ -64,7 +64,7 @@ def _run_one(tmp_path, seed, mesh=None, finalize=None):
 @pytest.mark.parametrize("seed", range(6))
 def test_engine_fuzz_single_device(tmp_path, seed):
     _run_one(tmp_path, 1000 + seed,
-             finalize="device" if seed % 2 else None)
+             finalize="device" if seed % 2 else "host")
 
 
 @pytest.mark.parametrize("seed", range(2))
@@ -74,4 +74,4 @@ def test_engine_fuzz_mesh(tmp_path, seed):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     _run_one(tmp_path, 2000 + seed, mesh=make_mesh(8),
-             finalize="device" if seed % 2 else None)
+             finalize="device" if seed % 2 else "host")
